@@ -1,6 +1,6 @@
 # rkmh-tpu container image (the reference ships ubuntu:16.04 + make;
 # here: python + JAX + the package, native IO extension built at install).
-# For TPU VMs use a jax[tpu] base image instead of the pip install below.
+# For NVIDIA GPUs install jax[cuda12] instead of the CPU jax below.
 FROM python:3.12-slim
 
 RUN apt-get update && apt-get install -y --no-install-recommends \

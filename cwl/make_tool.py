@@ -32,7 +32,7 @@ TOOLS = {
     "classify": dict(
         base=["rkmh-tpu", "stream"],
         doc=("Classify sequencing reads against a reference panel by "
-             "MinHash sketch intersection (TPU-native rkmh). Mirrors the "
+             "MinHash sketch intersection (GPU-accelerated rkmh). Mirrors the "
              "reference's cwl/rkmh_classify.json tool shape (inputs "
              "-r/-f/-k, stdout capture)."),
         inputs={

@@ -3,7 +3,7 @@
 Flag names and defaults mirror the reference's getopt tables
 (rkmh.cpp:626-647 stream, 1037-1056 filter, 1479-1490 call, 1963-1979
 hash, 2148-2156 search, 2284-2290 count, 2392-2405 hpv16) so existing
-rkmh invocations work unchanged.  TPU-specific knobs (--batch-size,
+rkmh invocations work unchanged.  Accelerator knobs (--batch-size,
 --counter-size, --devices) are additive.
 """
 
@@ -24,7 +24,7 @@ def _common_classify_flags(p):
     p.add_argument("-D", "--min-diff", type=int, default=0, dest="min_diff")
     p.add_argument("-I", "--max-samples", type=int, default=None, dest="max_samples")
     p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device dispatch; 0 = auto (16384 on TPU, 2048 on CPU)")
+                   help="reads per device dispatch; 0 = auto (16384 on an accelerator, 2048 on CPU)")
     p.add_argument("--chunk-reads", type=int, default=0,
                    help="reads parsed per streaming window (constant-memory input); "
                         "0 = auto (65536)")
@@ -53,7 +53,7 @@ def _common_classify_flags(p):
 def build_parser():
     ap = argparse.ArgumentParser(
         prog="rkmh-tpu",
-        description="TPU-native MinHash read classification (rkmh capabilities).",
+        description="GPU-accelerated MinHash read classification (rkmh capabilities).",
     )
     sub = ap.add_subparsers(dest="command", required=True)
 
@@ -148,7 +148,7 @@ def build_parser():
                    help="emit sourmash_signature JSON (sourmash's on-disk "
                         ".sig format; single -k sketches only)")
     p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device dispatch; 0 = auto (16384 on TPU, 2048 on CPU)")
+                   help="reads per device dispatch; 0 = auto (16384 on an accelerator, 2048 on CPU)")
     p.add_argument("--chunk-reads", type=int, default=0,
                    help="reads parsed per streaming window; 0 = auto (65536)")
     p.add_argument("--devices", type=int, default=0,
@@ -173,7 +173,7 @@ def build_parser():
     p.add_argument("-t", "--threads", type=int, default=1)
     p.add_argument("--counter-size", type=int, default=640_000)  # rkmh.cpp:2322
     p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device dispatch; 0 = auto (16384 on TPU, 2048 on CPU)")
+                   help="reads per device dispatch; 0 = auto (16384 on an accelerator, 2048 on CPU)")
     p.add_argument("-o", "--out-file", default="", help="save counter table (npz)")
     p.add_argument("--dump", action="store_true", help="print occupied slots")
     p.add_argument("--chunk-reads", type=int, default=0,
@@ -194,7 +194,7 @@ def build_parser():
     p.add_argument("-k", "--kmer", action="append", type=int, default=[], dest="ks")
     p.add_argument("-t", "--threads", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=0,
-                   help="reads per device dispatch; 0 = auto (16384 on TPU, 2048 on CPU)")
+                   help="reads per device dispatch; 0 = auto (16384 on an accelerator, 2048 on CPU)")
     p.add_argument("--chunk-reads", type=int, default=0,
                    help="reads parsed per streaming window; 0 = auto (65536)")
     p.add_argument("--devices", type=int, default=0,

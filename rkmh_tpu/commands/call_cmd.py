@@ -259,9 +259,9 @@ def run(cfg: CallConfig, out=None) -> int:
 
     # read depth map: every k-mer occurrence, zeros included
     # (rkmh.cpp:1616-23).  bucketed_batches pads row counts to powers of
-    # two instead of the full batch size — full-batch padding turned 25
-    # nanopore reads into a 16384x7409 batch (~1 GB of padding hashed
-    # AND fetched; measured 9 s of the old 14 s wall).
+    # two instead of the full batch size — full-batch padding would turn
+    # 25 nanopore reads into a 16384x7409 batch (~1 GB of padding hashed
+    # and fetched).
     table = build_depth_map(reads, ks, cfg.batch_size)
 
     if len(refs) > 1:

@@ -183,10 +183,9 @@ def build_tables(cfg: Hpv16Config, ks: tuple,
     built; rkmh.cpp:2544-2653), with the .tst side-effect file and the
     stderr stats.
 
-    Every path consumes the round-4 COMBINED representation: ONE bucket
-    table whose mask spans types + uniq groups — the probe runs one
-    wide row gather per element instead of a 288 B-row and a narrow
-    one (measured 2.0x: docs/ROOFLINE.md round-4 table).
+    Every path consumes the COMBINED representation: ONE bucket table
+    whose mask spans types + uniq groups — the probe runs one wide row
+    gather per element instead of a 288 B-row and a narrow one.
 
     tp_shards=0 (single device) builds tb.comb_table (or tb.comb_sorted
     past the RKMH_TPU_SET_TABLE_MAX_MB budget).  tp_shards>=1 (the
@@ -289,6 +288,8 @@ def build_tables(cfg: Hpv16Config, ks: tuple,
     else:
         comb_table = _bstd(all_h, all_m, num_refs=n_all,
                            est_entries=n_entries)
+        log(f"hpv16 panel: combined set table {comb_table.nbytes} bytes "
+            f"({n_entries} keys over {n_all} refs)")
 
     # the .tst side-effect file + stderr stats need the distinct values on
     # host — ONE grouped fetch (int64 fast path), then per-row np.unique
@@ -534,13 +535,8 @@ def _run(cfg: Hpv16Config, out, resume_skip: int = 0) -> int:
         if sharded_step is not None:
             return sharded_step(codes, lens)
         # single-device: ONE combined type+uniq table, probe compacted to
-        # the batch's max valid-window count (engine.hpv16_compact_width).
-        # Round-5 decision (VERDICT r4 item 4): compaction measured
-        # NEUTRAL on every on-chip batch — uniform (1.00x) and skewed
-        # (24 short + 1 bucket-filling read, 1.00-1.01x: one long read
-        # makes the batch-max width = W, and length bucketing groups
-        # similar lengths anyway) — and it can only shrink the probe, so
-        # it stays ungated (docs/ROOFLINE.md round-5 table).
+        # the batch's max valid-window count (engine.hpv16_compact_width;
+        # it can only shrink the probe)
         Wc = engine.hpv16_compact_width(lens, codes.shape[1], ks)
         if tb.comb_sorted is not None:
             # over-budget fallback: sorted-key panel, searchsorted probe

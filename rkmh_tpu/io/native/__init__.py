@@ -39,15 +39,24 @@ class _RkmhBatch(ctypes.Structure):
 
 
 def _build() -> bool:
+    # build to a per-process temp name and rename into place: processes
+    # that start together (test workers, --dist-procs ranks) must never
+    # load a half-written library
+    tmp = f"{_SO}.{os.getpid()}.tmp"
     cmd = [
         "g++", "-O3", "-march=native", "-shared", "-fPIC",
-        _SRC, "-o", _SO, "-lz",
+        _SRC, "-o", tmp, "-lz",
     ]
     try:
         subprocess.run(cmd, check=True, capture_output=True)
+        os.replace(tmp, _SO)
         return True
-    except (subprocess.CalledProcessError, FileNotFoundError) as e:
+    except (subprocess.CalledProcessError, FileNotFoundError, OSError) as e:
         print(f"rkmh_tpu: native io build skipped ({e})", file=sys.stderr)
+        try:
+            os.unlink(tmp)
+        except OSError:
+            pass
         return False
 
 

@@ -1,6 +1,6 @@
 // Native FASTA/FASTQ parser + 2-bit packer (C ABI, loaded via ctypes).
 //
-// TPU-native replacement for the reference's kseq.hpp streaming parser and
+// Replacement for the reference's kseq.hpp streaming parser and
 // KSEQ_Reader buffered batch reader (SURVEY.md §2.1 rows 6-7): a streaming
 // chunk API (`rkmh_stream_open` / `rkmh_stream_next` / `rkmh_stream_close`)
 // parses gzip or plain files (detected by magic bytes like io/fastx.py)

@@ -1,4 +1,4 @@
-"""TPU-native ML extension (the reference's Vowpal Wabbit layer).
+"""JAX ML extension (the reference's Vowpal Wabbit layer).
 
 The reference pipes rkmh output through a vw binary for coinfection /
 lineage models (/root/reference/model_docker/run_models.sh:3-10,

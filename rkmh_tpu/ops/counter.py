@@ -1,4 +1,4 @@
-"""Lossy hash-table k-mer depth counter — HASHTCounter, TPU-native.
+"""Lossy hash-table k-mer depth counter — HASHTCounter, on device.
 
 The reference's HASHTCounter (used for -M read-depth and -I
 informative-kmer filters; sizes 2e8 at rkmh.cpp:739-742, 8e8 at 2516,

@@ -122,8 +122,8 @@ def _canonical_use_fwd(codes, k: int, W: int):
     fwd base != rc base — a right-to-left fold of cheap uint8 compares
     (`later-positions verdict unless this position differs`), ~6 byte
     ops per base instead of building and comparing 2-bit-packed uint64
-    keys (64-bit arithmetic is emulated on TPU).  Ties (palindromes)
-    yield True, matching the <= of the packed-key compare.
+    keys.  Ties (palindromes) yield True, matching the <= of the
+    packed-key compare.
     """
     c = codes.astype(jnp.uint8)
     three = np.uint8(3)
@@ -182,21 +182,9 @@ def kmer_window_hashes(codes, k: int, seed: int = 42):
 
 def multi_k_window_hashes(codes, ks, seed: int = 42):
     """rkmh multi-k calc_hashes: per-k window hashes concatenated in k order
-    (rkmh.cpp:590/860 — repeated -k flags concatenate hash lists).
-
-    RKMH_TPU_PALLAS=1 routes each k through the Pallas VMEM-fused kernel
-    (ops/pallas_hash, bit-identical) instead of this XLA path.
-    """
+    (rkmh.cpp:590/860 — repeated -k flags concatenate hash lists)."""
     ks = [ks] if isinstance(ks, int) else list(ks)
-
-    hash_one = kmer_window_hashes
-    from rkmh_tpu.ops.pallas_hash import pallas_enabled
-
-    if pallas_enabled() and all(1 <= k <= 32 for k in ks):
-        from rkmh_tpu.ops.pallas_hash import kmer_window_hashes_pallas
-
-        hash_one = kmer_window_hashes_pallas
-    outs = [hash_one(codes, k, seed) for k in ks]
+    outs = [kmer_window_hashes(codes, k, seed) for k in ks]
     return jnp.concatenate(outs, axis=-1) if len(outs) > 1 else outs[0]
 
 

@@ -2,7 +2,7 @@
 
 The reference walks `numreads x numrefs` pairs of sorted sketch arrays with
 a two-pointer merge (mkmh hash_intersection_size, rkmh.cpp:867-870).  A
-sequential merge is hostile to a vector machine, so the TPU formulation
+sequential merge is hostile to a vector machine, so the device formulation
 counts, for every read-sketch element, how many times its value occurs in
 the reference sketch, using two vectorized binary searches over the sorted
 reference row — O(s log s) of pure gather/compare per pair, batched over

@@ -1,4 +1,4 @@
-"""MurmurHash3_x64_128 — clean-room, bit-exact, vectorized for TPU.
+"""MurmurHash3_x64_128 — clean-room, bit-exact, vectorized for the device.
 
 rkmh's hash_t is the low 64 bits (h1) of MurmurHash3_x64_128 with seed 42
 (self-documented in its JSON sketch metadata, rkmh.cpp:494-497:
@@ -15,8 +15,8 @@ Two implementations:
   mutation kmers of ``rkmh call`` when run host-side).
 * ``murmur3_x64_128_h1``  — vectorized jax.numpy over a [..., L] uint8
   byte tensor with *static* length L, returning the uint64 h1 lane.  All
-  64-bit arithmetic uses native uint64 (XLA emulates it on TPU with u32
-  pairs).  This is the building block of the k-mer window hash kernel.
+  64-bit arithmetic uses native uint64.  This is the building block of
+  the k-mer window hash kernel.
 """
 
 from __future__ import annotations

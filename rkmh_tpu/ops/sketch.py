@@ -14,33 +14,15 @@ consume directly.
 from __future__ import annotations
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 
 SENTINEL = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def sort_u64_rows(x):
-    """Ascending row sort of a u64 tensor.
-
-    On TPU the 64-bit compares inside XLA's sort are emulated; a two-key
-    (hi, lo) u32 sort is ~7% faster for long rows (measured, identical
-    output).  CPU keeps the native u64 sort.
-    """
-    try:
-        on_tpu = jax.default_backend() == "tpu"
-    except Exception:
-        on_tpu = False
-    if not on_tpu:
-        return jnp.sort(x, axis=-1)
-    return _sort_u64_rows_pair(x)
-
-
-def _sort_u64_rows_pair(x):
-    lo = x.astype(jnp.uint32)
-    hi = (x >> np.uint64(32)).astype(jnp.uint32)
-    shi, slo = jax.lax.sort((hi, lo), num_keys=2, dimension=-1)
-    return slo.astype(jnp.uint64) | (shi.astype(jnp.uint64) << np.uint64(32))
+    """Ascending row sort of a u64 tensor (the one sort path on every
+    backend)."""
+    return jnp.sort(x, axis=-1)
 
 
 def bottom_s_sketch(hashes, sketch_size: int):

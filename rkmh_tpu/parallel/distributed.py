@@ -4,7 +4,7 @@ The reference is a single OpenMP process (SURVEY.md §2.4 — no MPI/NCCL/
 anything).  Here multi-host scaling is the standard JAX recipe:
 
 1. every host calls :func:`initialize` (coordinator address via env or
-   args) — ICI collectives inside a slice, DCN across slices;
+   args) — NVLink collectives inside a host, the network across hosts;
 2. the global mesh spans all devices; reads are sharded by host
    (:func:`host_read_shard` gives each host its contiguous slice of the
    input, zero cross-host IO at read time);
@@ -30,14 +30,28 @@ import numpy as np
 import jax
 
 
+_LOOPBACK = ("localhost", "127.0.0.1", "::1", "[::1]")
+
+
+def _same_host(coordinator_address: str | None) -> bool:
+    """True when the coordinator is on this machine, i.e. every rank
+    shares this host (the --dist-procs N launch on one multi-GPU box)."""
+    if not coordinator_address:
+        return False
+    host = coordinator_address.rsplit(":", 1)[0]
+    return host in _LOOPBACK or host.startswith("127.")
+
+
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> None:
     """Bring up the jax.distributed runtime (no-op when single-process).
 
     Defaults come from the standard env vars (JAX_COORDINATOR_ADDRESS,
-    JAX_NUM_PROCESSES, JAX_PROCESS_ID) or the TPU metadata server on
-    Cloud TPU VMs (args all None).
+    JAX_NUM_PROCESSES, JAX_PROCESS_ID).  Ranks that share one host (a
+    loopback coordinator) each take the card of their own rank, so no
+    rank reserves memory on another rank's card; JAX_LOCAL_DEVICE_IDS
+    overrides that choice.
     """
     coordinator_address = coordinator_address or os.environ.get("JAX_COORDINATOR_ADDRESS")
     if num_processes is None and os.environ.get("JAX_NUM_PROCESSES"):
@@ -46,10 +60,15 @@ def initialize(coordinator_address: str | None = None,
         process_id = int(os.environ["JAX_PROCESS_ID"])
     if num_processes in (None, 1) and coordinator_address is None:
         return  # single-process: nothing to do
+    local_device_ids = None
+    if (process_id is not None and not os.environ.get("JAX_LOCAL_DEVICE_IDS")
+            and _same_host(coordinator_address)):
+        local_device_ids = [process_id]
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
         process_id=process_id,
+        local_device_ids=local_device_ids,
     )
 
 

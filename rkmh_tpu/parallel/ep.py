@@ -20,7 +20,8 @@ Scheme (exact, deterministic; device d owns the contiguous slot range
 
 The transient full table bounds the build step to tables that fit HBM
 once per device; for rkmh's sizes (<= 8e8 i32 = 3.2 GB) that holds on
-any TPU with >= 8 GB HBM, and steady-state memory is size/D per device.
+any card with >= 8 GB of device memory, and steady-state memory is
+size/D per device.
 """
 
 from __future__ import annotations

@@ -259,12 +259,9 @@ def sharded_filter_depth_table_fn(mesh: Mesh, ks: tuple, sketch_size: int,
 
 
 class ShardedHpv16Comb:
-    """SPMD hpv16 step over the round-4 COMBINED-mask set table, with
-    the same split-dispatch structure as single-device production
-    (engine.hpv16_batch_comb) — resolving the round-4 caveat that the
-    sharded paths kept the superseded separate-tables layout (measured
-    2.0x slower: fused separate tables 33.38 ms vs combined split
-    16.56 ms per 200-read batch, docs/ROOFLINE.md round-4 table).
+    """SPMD hpv16 step over the COMBINED-mask set table, with the same
+    split-dispatch structure as single-device production
+    (engine.hpv16_batch_comb).
 
     One bucket table spans types + uniq groups (mask bit r = type r for
     r < num_types, uniq group r-num_types after), tp-sharded by
@@ -276,9 +273,7 @@ class ShardedHpv16Comb:
     even sees them — the first-reference tie-break
     (rkmh.cpp:2669-2678) is exact by construction.
 
-    Three dispatches per batch, mirroring the single-device split
-    (the bare row gather as its own kCustom fusion measured 1.5x the
-    fused form on the 604 MB table, ROUND3.md):
+    Three dispatches per batch, mirroring the single-device split:
 
     1. ``stage1``  [shard_map]: hash -> (-M depth mask via the
        dp-sharded counter, parallel/ep.py) -> full row sort -> compact

@@ -1,85 +1,42 @@
-"""End-to-end `filter` parity vs a scalar model of rkmh main_filter
-(rkmh.cpp:996-1424 + equiv.hpp:324-353), on real minION long reads."""
+"""End-to-end `filter` parity vs the shared scalar model of rkmh
+main_filter (rkmh.cpp:996-1424 + equiv.hpp:324-353), on seeded
+nanopore-length reads."""
 
 import io
 
 import numpy as np
 import pytest
 
-from rkmh_tpu import oracle
-from rkmh_tpu.io.fastx import read_fastx
+from rkmh_tpu import oracle, synth
 from rkmh_tpu.commands.filter_cmd import FilterConfig, run
 
-DATA = "/root/reference/data"
 CTR = 100003  # small counter for tests (lossy modulo, like the reference's)
-
-
-def _ctr_add(ctr, h):
-    ctr[h % CTR] = ctr.get(h % CTR, 0) + 1
-
-
-def _ctr_get(ctr, h):
-    return ctr.get(h % CTR, 0)
 
 
 def oracle_filter(refs, reads, ks, s, min_diff=0, min_matches=-1,
                   min_kmer_occ=None, max_samples=None):
-    ref_ctr, read_ctr = {}, {}
-    ref_hashes = [oracle.calc_hashes(r.seq, list(ks)) for r in refs]
-    if max_samples is not None:
-        for h in ref_hashes:
-            for v in set(h):  # per-sample distinct (rkmh.cpp:340-357)
-                _ctr_add(ref_ctr, v)
-    read_hashes = [oracle.calc_hashes(r.seq, list(ks)) for r in reads]
-    if min_kmer_occ is not None:
-        for h in read_hashes:
-            for v in h:
-                _ctr_add(read_ctr, v)
-
-    ref_sk = []
-    for h in ref_hashes:
-        hs = sorted(h)
-        if max_samples is not None:
-            sk = [v for v in hs if v != 0 and _ctr_get(ref_ctr, v) <= max_samples][:s]
-        else:
-            sk = [v for v in hs if v != 0][:s]
-        ref_sk.append(sk)
-
-    out = []
-    for rec, h in zip(reads, read_hashes):
-        hs = sorted(h)
-        if min_kmer_occ is not None:
-            sk = [v for v in hs if v != 0 and _ctr_get(read_ctr, v) >= min_kmer_occ][:s]
-        else:
-            sk = [v for v in hs if v != 0][:s]
-        max_shared, prev_best = 0, 0
-        for rs in ref_sk:
-            shared = oracle.intersection_size(sk, rs)
-            if shared > max_shared:
-                prev_best = max_shared
-                max_shared = shared
-        depth_fail = len(sk) <= 0
-        match_fail = max_shared < min_matches
-        diff_ok = (max_shared - prev_best) > min_diff
-        if not depth_fail and not match_fail and diff_ok:
-            qual = rec.qual if rec.qual is not None else b"I" * len(rec.seq)
-            out.append(f">{rec.name}\n{rec.seq.decode()}\n+\n{qual.decode()}\n")
-    return "".join(out)
+    return oracle.filter_records(refs, reads, ks, s, min_diff, min_matches,
+                                 min_kmer_occ, max_samples, counter_size=CTR)
 
 
 @pytest.fixture(scope="module")
 def minion_data(tmp_path_factory):
+    """Two references (an HPV16-length and a dengue-length genome) and 8
+    long reads: six from the first reference at nanopore-like 8%
+    substitution, two from an unrelated genome (they must fail)."""
     tmp = tmp_path_factory.mktemp("filter")
-    reads = read_fastx(f"{DATA}/minION25.fq")[:8]
-    refs = read_fastx(f"{DATA}/hpv_16.fa") + read_fastx(f"{DATA}/dengue.fa")
+    rng = np.random.default_rng(25)
+    refs = [synth.SeqRecord("hpv16_like", synth.to_bytes(synth.random_codes(rng, 7906))),
+            synth.SeqRecord("dengue_like", synth.to_bytes(synth.random_codes(rng, 10723)))]
+    other = synth.to_bytes(synth.random_codes(rng, 9000))
+    kw = dict(mean_len=3000, sd_len=1500, min_len=800, sub_rate=0.08,
+              n_run_frac=0.3)
+    reads = next(synth.iter_reads(rng, [refs[0].seq], 6, prefix="m", **kw)) \
+        + next(synth.iter_reads(rng, [other], 2, prefix="x", **kw))
+    reads = [reads[i] for i in (0, 6, 1, 2, 7, 3, 4, 5)]
     rp, fp = str(tmp / "refs.fa"), str(tmp / "reads.fq")
-    with open(rp, "wb") as f:
-        for r in refs:
-            f.write(b">" + r.name.encode() + b"\n" + r.seq + b"\n")
-    with open(fp, "wb") as f:
-        for r in reads:
-            f.write(b"@" + r.name.encode() + b"\n" + r.seq + b"\n+\n"
-                    + (r.qual or b"I" * len(r.seq)) + b"\n")
+    synth.write_fasta(rp, refs)
+    synth.write_fastq(fp, reads)
     return refs, reads, rp, fp
 
 

@@ -11,15 +11,28 @@ import json
 import numpy as np
 import pytest
 
-from rkmh_tpu import oracle
-from rkmh_tpu.io.fastx import read_fastx
-
-DATA = "/root/reference/data"
+from rkmh_tpu import oracle, synth
 
 
 @pytest.fixture(scope="module")
-def zika_reads():
-    return read_fastx(f"{DATA}/z1.fq")[:40]
+def zika_files(tmp_path_factory):
+    """Seeded zika-shaped inputs: a 60-strain panel of 10,794 bp genomes
+    and 1,000 reads of 150 bp (1% substitutions, some with an N run)."""
+    tmp = tmp_path_factory.mktemp("zika")
+    rng = np.random.default_rng(12)
+    refs = synth.zika_panel(rng)
+    reads = next(synth.iter_reads(rng, [r.seq for r in refs], 1000,
+                                  length=150, sub_rate=0.01,
+                                  n_run_frac=0.03, prefix="z"))
+    rp, fp = str(tmp / "zika.refs.fa"), str(tmp / "z1.fq")
+    synth.write_fasta(rp, refs)
+    synth.write_fastq(fp, reads)
+    return rp, fp, reads
+
+
+@pytest.fixture(scope="module")
+def zika_reads(zika_files):
+    return zika_files[2][:40]
 
 
 def run_cmd(cfg_cls, run_fn, **kw):
@@ -87,16 +100,17 @@ def test_hash_wabbitize_format(tmp_path):
     assert out == f"XYX 1.0 `a_b|vir {feats} |sketch k:4 s:3\n"
 
 
-def test_hash_json_roundtrip_classify(tmp_path, zika_reads):
+def test_hash_json_roundtrip_classify(tmp_path, zika_files):
     """hash -o panel.json on refs, then stream --ref-sketches gives
     byte-identical output to the direct hashing path."""
     from rkmh_tpu.commands.hash_cmd import HashConfig, run as run_hash
     from rkmh_tpu.commands.stream import StreamConfig, run as run_stream
 
+    refs_fa, reads_fq, _ = zika_files
     prefix = str(tmp_path / "panel")
     rc = run_hash(
         HashConfig(
-            read_files=[f"{DATA}/zika.refs.fa"], ks=(12,), sketch_size=1000,
+            read_files=[refs_fa], ks=(12,), sketch_size=1000,
             out_prefix=prefix,
         )
     )
@@ -107,8 +121,8 @@ def test_hash_json_roundtrip_classify(tmp_path, zika_reads):
     assert len(data) == 60 and data[0]["hash_seed"] == 42
 
     buf_a, buf_b = io.StringIO(), io.StringIO()
-    common = dict(read_files=[f"{DATA}/z1.fq"], ks=(12,), sketch_size=1000)
-    run_stream(StreamConfig(ref_files=[f"{DATA}/zika.refs.fa"], **common), out=buf_a)
+    common = dict(read_files=[reads_fq], ks=(12,), sketch_size=1000)
+    run_stream(StreamConfig(ref_files=[refs_fa], **common), out=buf_a)
     run_stream(
         StreamConfig(ref_sketches=f"{prefix}.rkmh.json", **common), out=buf_b
     )
@@ -187,7 +201,7 @@ def test_search_finds_ref_kmers(tmp_path, zika_reads):
 # --devices: dp-sharded hashing, byte-identical to single-device
 # ---------------------------------------------------------------------------
 
-def test_dpctx_maybe_falls_back_gracefully():
+def test_dpctx_maybe_falls_back_gracefully(zika_files):
     """--devices beyond the visible device count must degrade to
     single-device with a logged reason (common.DpCtx.maybe), not crash
     in make_mesh — and the output stays identical."""
@@ -199,11 +213,12 @@ def test_dpctx_maybe_falls_back_gracefully():
     assert DpCtx.maybe(999) is None  # > visible -> logged fallback
     assert DpCtx.maybe(2) is not None  # virtual 8-device mesh
 
+    reads_fq = zika_files[1]
     a, b = io.StringIO(), io.StringIO()
-    assert count_run(CountConfig(read_files=[f"{DATA}/z1.fq"], ks=(12,),
+    assert count_run(CountConfig(read_files=[reads_fq], ks=(12,),
                                  counter_size=1 << 14, dump=True,
                                  devices=999), out=a) == 0
-    assert count_run(CountConfig(read_files=[f"{DATA}/z1.fq"], ks=(12,),
+    assert count_run(CountConfig(read_files=[reads_fq], ks=(12,),
                                  counter_size=1 << 14, dump=True), out=b) == 0
     assert a.getvalue() == b.getvalue()
 

@@ -95,53 +95,14 @@ def refpath(tmp_path_factory):
 
 
 def _oracle_hpv16_lines(types, subs, reads, k):
-    type_sets = [set(oracle.calc_hashes(t, k)) - {0} for t in types]
-    type_names = [f"TYPE{i}REF" for i in range(len(types))]
-    sub_names = sorted(subs)
-    sub_sets = {n: set(oracle.calc_hashes(subs[n], k)) - {0} for n in sub_names}
-    lin_names = sorted({n[0] for n in sub_names})
-    lin_sets = {
-        ln: set().union(*[sub_sets[n] for n in sub_names if n[0] == ln])
-        for ln in lin_names
-    }
-    lin_uniq = {
-        ln: lin_sets[ln] - set().union(*[v for o, v in lin_sets.items() if o != ln])
-        for ln in lin_names
-    }
-    sub_uniq = {
-        sn: sub_sets[sn] - set().union(*[v for o, v in sub_sets.items() if o != sn])
-        for sn in sub_names
-    }
+    """The shared hpv16 oracle over this module's fixture layout: type
+    genomes named TYPE<i>REF in order, sublineages keyed by name."""
+    from rkmh_tpu.io.fastx import SeqRecord
 
-    lines = []
-    for name, seq in reads:
-        hashes = oracle.calc_hashes(seq, k)
-        hn = len(hashes)
-        hset = set(hashes) - {0}
-        counts = [len(hset & ts) for ts in type_sets]
-        best, mx = 0, -1
-        for j, c in enumerate(counts):
-            if c > mx:
-                mx, best = c, j
-        lin_ints = [len(hset & lin_uniq[ln]) for ln in lin_names]
-        sub_ints = [len(hset & sub_uniq[sn]) for sn in sub_names]
-        # zero-window reads get sim 0 (the reference would divide 0/0;
-        # PARITY.md "deliberate improvements")
-        lin_sims = [c / hn if hn else 0.0 for c in lin_ints]
-        sub_sims = [c / hn if hn else 0.0 for c in sub_ints]
-        lo = sorted(range(len(lin_names)), key=lambda x: -lin_sims[x])
-        so = sorted(range(len(sub_names)), key=lambda x: -sub_sims[x])
-        lines.append(
-            f"{name}\t{type_names[best]}\t{mx}/{hn}\t"
-            + "".join(f"{lin_names[x]}:{lin_sims[x]:.6g};" for x in lo)
-            + "\t"
-            + "".join(f"{sub_names[x]}:{sub_sims[x]:.6g};" for x in so)
-            + "\t"
-            + "".join(f"{lin_ints[x]};" for x in lo)
-            + "\t"
-            + "".join(f"{sub_ints[x]};" for x in so)
-        )
-    return lines
+    return oracle.hpv16_lines(
+        [SeqRecord(f"TYPE{i}REF", t) for i, t in enumerate(types)],
+        [SeqRecord(n, sq) for n, sq in subs.items()],
+        [SeqRecord(n, sq) for n, sq in reads], k)
 
 
 def test_hpv16_matches_oracle(refpath, tmp_path, monkeypatch):

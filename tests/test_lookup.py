@@ -74,9 +74,8 @@ def test_nosort_short_read_path_matches_sorted():
     """The sort-free classify computation (prefix-equality occ ranks +
     order-free masked lookup — the accelerator W <= s path inside
     engine._table_counts_from_codes) must be bit-identical to the sorted
-    bottom-s path, duplicates and invalid windows included.  Built
-    explicitly here because the jitted wrapper only selects it on
-    accelerator backends."""
+    bottom-s path, duplicates and invalid windows included — built
+    explicitly, and through the jitted wrapper with accel=True."""
     import numpy as np
     import jax.numpy as jnp
     from rkmh_tpu.classify import engine
@@ -121,6 +120,13 @@ def test_nosort_short_read_path_matches_sorted():
     b = to_host((so_counts, sk_lens))
     assert np.array_equal(np.asarray(a[0]), np.asarray(b[0]))
     assert np.array_equal(np.asarray(a[1]), np.asarray(b[1]))
+
+    assert engine.use_nosort(W, s, accel=True)
+    kw = dict(ks=ks, sketch_size=s, num_refs=panel.num_refs, min_diff=0,
+              min_matches=3)
+    nosort = engine.classify_codes_table_packed2(read_codes, table, accel=True, **kw)
+    sort = engine.classify_codes_table_packed2(read_codes, table, accel=False, **kw)
+    assert np.array_equal(np.asarray(nosort), np.asarray(sort))
 
 
 def test_packed4_wire_format_classify_identical():

@@ -70,3 +70,48 @@ def test_batched_shapes():
     batch = rng.integers(0, 256, size=(3, 5, 12), dtype=np.uint8)
     h1, _ = murmur3_x64_128(batch, seed=42)
     assert h1.shape == (3, 5)
+
+
+# ---------------------------------------------------------------------------
+# bulk oracle: numpy murmur + canonical window hashing vs the scalar oracle
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("k", [1, 7, 12, 16, 17, 18, 31, 32, 33, 40])
+def test_calc_hashes_np_matches_scalar(k):
+    from rkmh_tpu import oracle
+
+    rng = np.random.default_rng(k)
+    alphabet = np.frombuffer(b"ACGTNacgtnRY", np.uint8)
+    p = np.array([20, 20, 20, 20, 2, 4, 4, 4, 4, 1, 0.5, 0.5])
+    for _ in range(6):
+        n = int(rng.integers(0, 150))
+        seq = rng.choice(alphabet, size=n, p=p / p.sum()).tobytes()
+        assert oracle.calc_hashes_np(seq, k).tolist() == oracle.calc_hashes(seq, k)
+
+
+def test_calc_hashes_np_multi_k_and_rows():
+    from rkmh_tpu import oracle
+
+    seq = b"ACGTTGCAACGGTACCAGTTAGGACCATTGACN" * 3
+    assert oracle.calc_hashes_np(seq, [12, 16]).tolist() == \
+        oracle.calc_hashes(seq, [12, 16])
+    rows = np.frombuffer(b"hello, murmur!!!" * 2, np.uint8).reshape(2, 16)
+    want = [murmur3_x64_128_np(bytes(r), 42)[0] for r in rows]
+    assert oracle.murmur3_h1_rows(rows, 42).tolist() == want
+
+
+def test_multiset_panel_matches_scalar_intersections():
+    from rkmh_tpu import oracle
+
+    rng = np.random.default_rng(5)
+    rows = [np.sort(rng.integers(1, 40, size=int(rng.integers(0, 30))))
+            .astype(np.uint64) for _ in range(7)]
+    panel = oracle.MultisetPanel(rows)
+    for _ in range(10):
+        q = np.sort(rng.integers(1, 40, size=25)).astype(np.uint64)
+        got = panel.counts(q).tolist()
+        want = [oracle.intersection_size(q.tolist(), r.tolist()) for r in rows]
+        assert got == want
+        got_d = panel.counts(q, distinct=True).tolist()
+        want_d = [oracle.set_intersection_size(q.tolist(), r.tolist()) for r in rows]
+        assert got_d == want_d

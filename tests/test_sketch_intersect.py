@@ -102,16 +102,19 @@ def test_sort_hashes_padded_keeps_zeros():
     assert int(lens[0]) == 3
 
 
-def test_pair_sort_matches_u64_sort():
-    """The TPU two-key (hi, lo) row sort must order u64 values exactly
-    like the native sort, high bits included."""
+@pytest.mark.parametrize("shape", [(1, 1), (16, 149), (16, 257), (3, 4591)])
+def test_sort_u64_rows_matches_numpy(shape):
+    """The one u64 row sort orders values exactly like numpy, high bits,
+    duplicates, 0 and the all-ones sentinel included."""
     import numpy as np
     import jax.numpy as jnp
-    from rkmh_tpu.ops.sketch import _sort_u64_rows_pair
+    from rkmh_tpu.ops.sketch import sort_u64_rows
 
-    rng = np.random.default_rng(0)
-    x = rng.integers(0, 2**64, size=(16, 257), dtype=np.uint64)
-    x[0, :5] = [0, 1, 2**32 - 1, 2**32, 2**63]
-    x[1] = x[1][0]  # constant row
-    got = np.asarray(_sort_u64_rows_pair(jnp.asarray(x)))
+    rng = np.random.default_rng(shape[1])
+    x = rng.integers(0, 2**64, size=shape, dtype=np.uint64)
+    if shape[1] >= 5:
+        x[0, :5] = [0, 1, 2**32 - 1, 2**32, 2**63]
+        x[-1] = x[-1][0]  # constant row
+        x[0, -1] = SENTINEL
+    got = np.asarray(sort_u64_rows(jnp.asarray(x)))
     assert np.array_equal(got, np.sort(x, axis=-1))

@@ -1,67 +1,44 @@
-"""End-to-end `stream`/`classify` parity on real zika data (subset).
+"""End-to-end `stream`/`classify` parity on seeded zika-shaped data.
 
-Expected output is computed by a pure-Python pipeline that mirrors
-rkmh main_stream's exact semantics (rkmh.cpp:845-898): bottom-s sketches,
-min-multiplicity sorted intersection, scan-argmax starting at -1 with
-strict >, and the FAIL-tag line format of rkmh.cpp:892.
+Expected output comes from the shared oracle (rkmh_tpu.oracle.stream_lines),
+a pure numpy/Python pipeline that mirrors rkmh main_stream's exact
+semantics (rkmh.cpp:845-898): bottom-s sketches, min-multiplicity sorted
+intersection, scan-argmax starting at -1 with strict >, and the FAIL-tag
+line format of rkmh.cpp:892.
 """
 
 import io
-import os
 
+import numpy as np
 import pytest
 
-from rkmh_tpu import oracle
-from rkmh_tpu.io.fastx import read_fastx
+from rkmh_tpu import oracle, synth
 from rkmh_tpu.commands.stream import StreamConfig, run
 
-DATA = "/root/reference/data"
+
+def oracle_stream_lines(refs, reads, ks, s, **kw):
+    return "".join(oracle.stream_lines(refs, reads, ks, s, **kw))
 
 
-def oracle_stream_lines(refs, reads, ks, s, min_diff=0, min_matches=-1):
-    ref_sk = [oracle.minhashes(oracle.calc_hashes(r.seq, list(ks)), s) for r in refs]
-    lines = []
-    for rec in reads:
-        mins = oracle.minhashes(oracle.calc_hashes(rec.seq, list(ks)), s)
-        shared = [oracle.intersection_size(mins, rs) for rs in ref_sk]
-        max_shared, max_id, diff = -1, 0, 0
-        for j, c in enumerate(shared):
-            if c > max_shared:
-                diff = c - max_shared
-                max_shared = c
-                max_id = j
-        diff_ok = diff > min_diff
-        depth_fail = len(mins) <= min_matches
-        match_fail = max_shared < min_matches
-        lines.append(
-            f"{refs[max_id].name}\t{rec.name}\t{max_shared}\t{s}"
-            f"{'FAIL:DEPTH' if depth_fail else ''}\t"
-            f"{'FAIL:MATCHES' if match_fail else ''}\t"
-            f"{'' if diff_ok else 'FAIL:DIFF'}\n"
-        )
-    return "".join(lines)
+write_fasta = synth.write_fasta
+write_fastq = synth.write_fastq
 
 
-def write_fasta(path, recs):
-    with open(path, "wb") as f:
-        for r in recs:
-            f.write(b">" + r.name.encode() + b"\n" + r.seq + b"\n")
-
-
-def write_fastq(path, recs):
-    with open(path, "wb") as f:
-        for r in recs:
-            f.write(
-                b"@" + r.name.encode() + b"\n" + r.seq + b"\n+\n"
-                + (r.qual or b"I" * len(r.seq)) + b"\n"
-            )
+def zika_like(seed, n_refs=5, ref_len=2000, n_reads=16, read_len=150):
+    """A small seeded strain panel and reads drawn from it (1% subs, some
+    reads with an N run)."""
+    rng = np.random.default_rng(seed)
+    refs = synth.zika_panel(rng, n_refs, ref_len)
+    reads = next(synth.iter_reads(rng, [r.seq for r in refs], n_reads,
+                                  length=read_len, sub_rate=0.01,
+                                  n_run_frac=0.2, prefix="z"))
+    return refs, reads
 
 
 @pytest.fixture(scope="module")
 def zika_subset(tmp_path_factory):
     tmp = tmp_path_factory.mktemp("zika")
-    refs = read_fastx(f"{DATA}/zika.refs.fa")[:5]
-    reads = read_fastx(f"{DATA}/z1.fq")[:16]
+    refs, reads = zika_like(5)
     rp, fp = str(tmp / "refs.fa"), str(tmp / "reads.fq")
     write_fasta(rp, refs)
     write_fastq(fp, reads)
@@ -83,8 +60,9 @@ def test_stream_long_reads_mixed_grid_matches_oracle(tmp_path):
     fine-32 / coarse-128 padded-length grids (io.packing.grid_length),
     so batches come from different buckets and must still reassemble in
     input order, byte-identical to the oracle."""
-    refs = read_fastx(f"{DATA}/zika.refs.fa")[:5]
-    reads = read_fastx(f"{DATA}/z1_long.fq")[:8] + read_fastx(f"{DATA}/z1.fq")[:8]
+    refs, short = zika_like(6, read_len=150, n_reads=8)
+    _, long_ = zika_like(6, read_len=1500, n_reads=8)
+    reads = long_ + short
     # interleave so bucket emission order differs from input order
     reads = [r for pair in zip(reads[:8], reads[8:]) for r in pair]
     rp, fp = str(tmp_path / "refs.fa"), str(tmp_path / "reads.fq")
@@ -123,27 +101,8 @@ def test_stream_min_kmer_occ_matches_oracle(zika_subset):
     (rkmh.cpp:903-917), small counter to exercise collision semantics."""
     refs, reads, rp, fp = zika_subset
     ks, s, M, C = (12,), 200, 2, 4096
-
-    table = [0] * C
-    for rec in reads:
-        for h in oracle.calc_hashes(rec.seq, list(ks)):
-            table[h % C] += 1
-
-    ref_sk = [oracle.minhashes(oracle.calc_hashes(r.seq, list(ks)), s) for r in refs]
-    lines = []
-    for rec in reads:
-        hashes = [
-            h if table[h % C] >= M else 0
-            for h in oracle.calc_hashes(rec.seq, list(ks))
-        ]
-        mins = oracle.minhashes(hashes, s)
-        shared = [oracle.intersection_size(mins, rs) for rs in ref_sk]
-        max_shared, max_id = -1, 0
-        for j, c in enumerate(shared):
-            if c > max_shared:
-                max_shared, max_id = c, j
-        lines.append(f"{refs[max_id].name}\t{rec.name}\t{max_shared}\t{s}\t\t\n")
-    expected = "".join(lines)
+    expected = oracle_stream_lines(refs, reads, ks, s, min_kmer_occ=M,
+                                   counter_size=C)
 
     buf = io.StringIO()
     run(StreamConfig(ref_files=[rp], read_files=[fp], ks=ks, sketch_size=s,
@@ -157,30 +116,8 @@ def test_stream_max_samples_matches_oracle(zika_subset):
     (rkmh.cpp:828-837)."""
     refs, reads, rp, fp = zika_subset
     ks, s, I, C = (12,), 200, 3, 1 << 16
-
-    table = [0] * C
-    for r in refs:
-        for h in oracle.calc_hashes(r.seq, list(ks)):
-            table[h % C] += 1
-
-    ref_sk = []
-    for r in refs:
-        hashes = [
-            h if 0 <= table[h % C] <= I else 0
-            for h in oracle.calc_hashes(r.seq, list(ks))
-        ]
-        ref_sk.append(oracle.minhashes(hashes, s))
-
-    lines = []
-    for rec in reads:
-        mins = oracle.minhashes(oracle.calc_hashes(rec.seq, list(ks)), s)
-        shared = [oracle.intersection_size(mins, rs) for rs in ref_sk]
-        max_shared, max_id = -1, 0
-        for j, c in enumerate(shared):
-            if c > max_shared:
-                max_shared, max_id = c, j
-        lines.append(f"{refs[max_id].name}\t{rec.name}\t{max_shared}\t{s}\t\t\n")
-    expected = "".join(lines)
+    expected = oracle_stream_lines(refs, reads, ks, s, max_samples=I,
+                                   counter_size=C)
 
     buf = io.StringIO()
     run(StreamConfig(ref_files=[rp], read_files=[fp], ks=ks, sketch_size=s,
